@@ -1,6 +1,6 @@
 // Native stereo-frame loader: libpng decode + background prefetch ring.
 //
-// TPU-native counterpart of the reference's dataset layer
+// Counterpart of the reference's dataset layer
 // (KittiDataset lazy imread, ref src/dataset.cpp:108-124): a worker
 // thread decodes upcoming stereo pairs into a fixed ring of float32
 // buffers while the device crunches the current frame, so host decode

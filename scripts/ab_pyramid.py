@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import dataclasses
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from slam_toolkit_tpu.utils import compile_cache
+compile_cache.enable()
 
 from slam_toolkit_tpu.config import ExtractorConfig
 from slam_toolkit_tpu.ops import pyramid

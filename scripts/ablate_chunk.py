@@ -1,4 +1,4 @@
-"""Chunk-level ablation: which stage costs what (tunnel-proof timing)."""
+"""Chunk-level ablation: which stage costs what (timed over whole chunks)."""
 import os
 import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

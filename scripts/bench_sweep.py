@@ -3,9 +3,9 @@
 The headline bench (bench.py) times one seed; this sweep reuses the SAME
 compiled programs across seeds (no recompile — shapes are static) and
 reports per-seed fps / ATE / RPE plus aggregates. Rendered sequences are
-cached next to bench.py's cache.
+cached next to bench.py's, in `.bench_data/` of the checkout.
 
-Run: python scripts/bench_sweep.py            (real TPU)
+Run: python scripts/bench_sweep.py            (on the GPU)
      BENCH_SWEEP_SEEDS=7,11 BENCH_SWEEP_FRAMES=96 python scripts/bench_sweep.py
 """
 
@@ -21,8 +21,12 @@ import numpy as np
 
 def load_or_render(cfg, n_frames, seed):
     from slam_toolkit_tpu.data.synthetic import make_sequence
-    cache = (f"/tmp/slam_sweep_{seed}_{n_frames}_{cfg.camera.width}x"
-             f"{cfg.camera.height}")
+    data_dir = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench_data")
+    os.makedirs(data_dir, exist_ok=True)
+    cache = os.path.join(data_dir, f"sweep_{seed}_{n_frames}_"
+                         f"{cfg.camera.width}x{cfg.camera.height}")
     if os.path.exists(cache + ".npy"):
         return np.load(cache + ".npy", mmap_mode="r"), \
             list(np.load(cache + ".gt.npy"))
@@ -40,8 +44,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from slam_toolkit_tpu.utils import compile_cache
+    compile_cache.enable()
 
     from slam_toolkit_tpu.config import SlamConfig
     from slam_toolkit_tpu.evaluation.traj import ate_rmse, rpe

@@ -1,5 +1,5 @@
 """Profile the dense-clustering workload (epip_cluster parity) at KITTI
-scale on the TPU: per-stage device timings for dense_frame /
+scale on the GPU: per-stage device timings for dense_frame /
 track_clusters / ransac_round, plus end-to-end DenseTracker.track fps.
 
 Usage:  python scripts/profile_cluster.py [n_frames]
@@ -18,18 +18,12 @@ import jax.numpy as jnp
 
 from slam_toolkit_tpu.cluster.tracker import DenseConfig, DenseTracker
 from slam_toolkit_tpu.data.synthetic import make_cluster_scene
-from slam_toolkit_tpu.utils.chip_lease import ChipLease
 
 
 def main():
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 20
     import os
     P = int(os.environ.get("SLAM_CLUSTER_POINTS", "18688"))
-
-    lease = ChipLease()
-    if not lease.acquire(timeout_s=600):
-        print(f"chip busy ({lease.holder()}); aborting", file=sys.stderr)
-        sys.exit(1)
 
     print(f"devices: {jax.devices()}")
     scene = make_cluster_scene(n_frames=n_frames)
@@ -94,7 +88,6 @@ def main():
     n_timed = len(scene.frames) - 3
     wall = time.perf_counter() - t_start
     print(f"\nfps (frames 3..{len(scene.frames)-1}): {n_timed/wall:.1f}")
-    lease.release()
 
 
 if __name__ == "__main__":

@@ -19,8 +19,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from slam_toolkit_tpu.utils import compile_cache
+compile_cache.enable()
 
 from slam_toolkit_tpu.config import SlamConfig
 from slam_toolkit_tpu.loop import vocab as V

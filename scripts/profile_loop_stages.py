@@ -4,11 +4,10 @@ Wraps the host engine's loop-machinery entry points (_bow, _loop_score,
 _covis, _relpose, _close, the per-chunk packed readback) with
 block_until_ready + perf_counter buckets, then runs the same workload as
 `BENCH_LOOP=1 python bench.py` and prints where the non-track wall time
-goes. Used to attack the loop-mode fps gap (BASELINE.md: 631 fps
-loop-off vs ~20 fps loop-on — the delta is host-side closure machinery,
-this script says which piece).
+goes: the gap between loop-on and loop-off fps is host-side closure
+machinery, and this script says which piece.
 
-Run on the real chip: `python scripts/profile_loop_stages.py`
+Run on the GPU: `python scripts/profile_loop_stages.py`
 (honours BENCH_FRAMES / BENCH_CHUNK).
 """
 
@@ -24,8 +23,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from slam_toolkit_tpu.utils import compile_cache
+compile_cache.enable()
 
 from slam_toolkit_tpu.config import SlamConfig
 from slam_toolkit_tpu.loop import vocab as V

@@ -1,4 +1,4 @@
-"""Capture + summarize an op-level profile of bench chunks on the TPU.
+"""Capture + summarize an op-level profile of bench chunks on the GPU.
 
 Uses the bench.py frame cache (run bench.py once to build it). Traces
 two mid-sequence chunks — a warm map with the production keyframe rate.
@@ -12,8 +12,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from slam_toolkit_tpu.utils import compile_cache
+compile_cache.enable()
 
 from slam_toolkit_tpu.config import SlamConfig
 from slam_toolkit_tpu.pipeline.scan_engine import ChunkedSlamEngine

@@ -1,14 +1,14 @@
 """Dense optical flow: Farneback-style polynomial expansion, conv-only.
 
-TPU-native replacement for cv::cuda::FarnebackOpticalFlow(levels=5,
+Replacement for cv::cuda::FarnebackOpticalFlow(levels=5,
 scale=0.5, winsize=13) (ref examples/epip_cluster/src/tracker.cpp:57,
 130-145). Farneback fits a local quadratic I(x) ~ x^T A x + b^T x + c to
 each neighborhood via separable Gaussian-weighted correlations, then
 reads displacement from coefficient differences:
     d = -0.5 * (A0 + A1)^-1 (b1 - b0)
 iterated coarse-to-fine over an image pyramid with window-averaged
-updates. Everything is separable convolutions and 2x2 solves — ideal
-VPU/MXU work, no data-dependent control flow.
+updates. Everything is separable convolutions and 2x2 solves — dense
+elementwise and matmul work, no data-dependent control flow.
 """
 
 from __future__ import annotations
@@ -44,9 +44,8 @@ def _poly_basis(n: int, sigma: float):
 
 def _sep_correlate(img: jnp.ndarray, kx: jnp.ndarray,
                    ky: jnp.ndarray) -> jnp.ndarray:
-    """Separable correlation with edge padding, as two banded MXU
-    matmuls (ops/sepconv.py — 1-channel `lax.conv` cannot tile onto
-    the MXU; the matmul form cut the KITTI-scale flow pass ~10x)."""
+    """Separable correlation with edge padding, as two banded matmuls
+    (ops/sepconv.py)."""
     from slam_toolkit_tpu.ops.sepconv import sep_correlate2d
     return sep_correlate2d(img, np.asarray(kx), np.asarray(ky))
 
@@ -84,13 +83,12 @@ def _warp(img: jnp.ndarray, flow: jnp.ndarray,
           rx: int = 48, ry: int = 16) -> jnp.ndarray:
     """Backward-warp img by flow (H, W, 2), bilinear, gather-free.
 
-    A per-pixel gather of 467k bilinear taps cost ~17 ms of device time
-    per warp at KITTI scale (XLA lowers arbitrary 2-D gathers to a slow
-    path) — and the pyramid schedule warps ~10x per flow field. Instead:
-    two separable shift-and-select passes over the BOUNDED flow range
-    (|fx|<rx, |fy|<ry, flow clipped): for each integer offset k the
-    contribution is a static slice of the edge-padded image times a
-    selection weight, a pure VPU stream the compiler pipelines (~1 ms).
+    Two separable shift-and-select passes over the BOUNDED flow range
+    (|fx|<rx, |fy|<ry, flow clipped) instead of a per-pixel gather of
+    467k bilinear taps (the pyramid schedule warps ~10x per flow field):
+    for each integer offset k the contribution is a static slice of the
+    edge-padded image times a selection weight, one elementwise stream.
+    Whether a plain gather is faster on the GPU is ROADMAP S3.
     Separability evaluates fx at the unshifted row — a ~|fy * d(fx)/dy|
     subpixel approximation, negligible for box-smoothed flow fields.
     """
@@ -176,8 +174,8 @@ def farneback_flow(img0: jnp.ndarray, img1: jnp.ndarray, levels: int = 5,
     # the two frames, and large motions never lock on: measured on the
     # cluster bench scene as flow failing exactly where |flow| >= 18 px
     # (coarse-level capture needed) while <= 13 px bands tracked to
-    # 0.01 px (r5). Blur taps ride the same banded-MXU sep_correlate2d
-    # as every other filter here.
+    # 0.01 px (r5). Blur taps ride the same banded-matmul
+    # sep_correlate2d as every other filter here.
     from slam_toolkit_tpu.ops.sepconv import sep_correlate2d
     g5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
     pyr0 = [img0.astype(jnp.float32)]

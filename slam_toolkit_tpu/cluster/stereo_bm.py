@@ -1,15 +1,15 @@
 """Dense stereo block matching as a shifted-SAD cost volume.
 
-TPU-native replacement for cv::cuda::StereoBM(num_disparities=128,
+Replacement for cv::cuda::StereoBM(num_disparities=128,
 block_size=19) used by the reference's dense tracker
 (ref examples/epip_cluster/src/tracker.cpp:54,106-128). The cost volume
 is built from D shifted absolute differences box-filtered separably —
-pure elementwise + conv work the VPU eats, with the disparity loop as
-one batched axis instead of a kernel launch per pixel.
+pure elementwise + filter work, with the disparity loop as one batched
+axis instead of a kernel launch per pixel.
 
 The reference masks computation to Sobel-edge regions (:76-87); the mask
-here gates the output rather than the compute (dense compute is cheaper
-on TPU than divergent masking).
+here gates the output rather than the compute (dense fixed-shape compute
+instead of divergent masking).
 """
 
 from __future__ import annotations
@@ -21,12 +21,9 @@ import numpy as np
 
 def _box_filter(x: jnp.ndarray, size: int) -> jnp.ndarray:
     """Separable box filter over the last two axes (same padding), as
-    two banded MXU matmuls (ops/sepconv.py). The previous
-    `lax.conv_general_dilated` with one input channel could not tile
-    onto the MXU and ran the (D, H, W) cost volume through the VPU tap
-    by tap — the box filter alone was ~100 ms of the 140 ms KITTI-scale
-    disparity pass; the matmul form is ~10x faster despite doing N/k
-    times more FLOPs."""
+    two banded matmuls (ops/sepconv.py), which do N/k times more FLOPs
+    than a tap loop; whether direct shifted adds or `lax.conv` are
+    faster on the GPU is ROADMAP S3."""
     from slam_toolkit_tpu.ops.sepconv import sep_correlate2d
     taps = np.full((size,), 1.0 / size, np.float32)
     return sep_correlate2d(x, taps, taps)
@@ -52,12 +49,11 @@ def disparity(left: jnp.ndarray, right: jnp.ndarray,
     diffs = jnp.stack([cost_at(d) for d in range(num_disparities)], axis=0)
     cost = _box_filter(diffs, block_size)
 
-    # Winner-take-all WITHOUT gathers: per-pixel indexing into the
-    # (D, H, W) volume (`cost[best, rows, cols]`) and jnp.partition for
-    # the second-best each lowered to slow scatter/sort paths on TPU —
-    # WTA alone was ~50 ms of device time at KITTI scale, more than the
-    # whole cost volume. Everything below is masked min/sum reductions
-    # over the D axis that XLA fuses into single passes over the volume.
+    # Winner-take-all WITHOUT gathers: instead of per-pixel indexing
+    # into the (D, H, W) volume (`cost[best, rows, cols]`) and
+    # jnp.partition for the second-best, everything below is masked
+    # min/sum reductions over the D axis that XLA fuses into single
+    # passes over the volume (ROADMAP S9 A/Bs this against gathers).
     best = jnp.argmin(cost, axis=0)                       # (H, W)
     c_best = jnp.min(cost, axis=0)
     didx = jnp.arange(num_disparities)[:, None, None]

@@ -27,16 +27,12 @@ class ExtractorConfig:
     num_features: int = 2000          # requested features across all levels
     scale_factor: float = 1.2
     num_levels: int = 8
-    # "matmul": banded interpolation matmuls, any scale factor — the
-    # default: in the full bench it is both faster (582-590 vs 554-566
-    # fps, 2x2 interleaved same-hour A/B) and more accurate (ATE 0.138
-    # vs 0.150 m) than poly, despite poly winning the isolated pyramid
-    # microbenchmark ~10x (the pyramid is not the critical path inside
-    # the fused chunk program, and poly's <=6 px level-shape padding
-    # shifts keypoint selection). "poly": exact 6:5 polyphase cascade
-    # (scale_factor must be 1.2) — five static-stride weighted adds per
-    # axis, pure VPU, no gathers/MXU; kept as an option for rigs where
-    # extraction dominates.
+    # "matmul": banded interpolation matmuls, any scale factor (the
+    # default; more accurate on the KITTI-scale bench, ATE 0.138 vs
+    # 0.150 m, because poly's <=6 px level-shape padding shifts keypoint
+    # selection). "poly": exact 6:5 polyphase cascade (scale_factor must
+    # be 1.2) — five static-stride weighted adds per axis, no gathers or
+    # matmuls; kept as an option for rigs where extraction dominates.
     pyramid_mode: str = "matmul"
     fast_threshold_high: int = 20     # initial FAST threshold
     fast_threshold_low: int = 7       # fallback threshold in sparse cells
@@ -56,26 +52,14 @@ class ExtractorConfig:
     # steering stays available for rotation-heavy rigs.
     steer_rotation: bool = False
     # dtype of the blur -> patch-gather -> BRIEF-compare path. bfloat16
-    # halves the descriptor path's HBM footprint but measured NO fps
-    # gain on a v5e (the patch gathers are VMEM/issue-bound, not
-    # HBM-bound, and Mosaic's 32-bit-only dynamic_rotate forces an
-    # in-kernel upcast) while near-tie comparison flips cost ~0.05 m
-    # ATE on the KITTI-scale bench. Keep float32; the bf16 path stays
-    # available for HBM-constrained deployments.
+    # halves the descriptor path's memory traffic, but near-tie
+    # comparison flips cost ~0.05 m ATE on the KITTI-scale bench. Keep
+    # float32; the bf16 path stays available for memory-bound rigs.
     descriptor_dtype: str = "float32"
-    # fused FAST+NMS Pallas kernel (ops/fast_kernel.py): the whole
-    # corner chain in one VMEM pass per level, bit-exact vs the XLA
-    # formulation (probe-gated, XLA fallback off-TPU / on Mosaic
-    # failure). Default OFF: alternating bench A/B on a v5e was a
-    # statistical tie (XLA 495-523 fps over 4 runs, fused 500-523 over
-    # 3; both VPU-bound on identical arithmetic), so the simpler XLA
-    # path stays default. Kept as an option for libtpu builds where
-    # the XLA fusion regresses.
-    fused_fast: bool = False
 
     @property
     def max_keypoints(self) -> int:
-        """Padded per-frame keypoint capacity (lane-aligned)."""
+        """Padded per-frame keypoint capacity (a multiple of 128)."""
         return _round_up(self.num_features, 128)
 
     @property
@@ -117,11 +101,11 @@ class MatcherConfig:
     stereo_method: str = "sad"
     stereo_uniqueness: float = 0.15   # SAD second-best margin (sad mode)
     # descriptor-consistency gate on SAD stereo matches (one BRIEF per
-    # eye at level 0, reject on Hamming > max_hamming). Costs ~0.7 ms of
-    # each keyframe event (two patch-gather kernels + two pick matmuls +
-    # a right-image blur). Measured OFF on the KITTI-scale 3-seed sweep:
-    # 509 fps / 0.179 m ATE vs 475 / 0.178 with it on — the SAD
-    # uniqueness margin + positive-depth gate + BA's sigma trim already
+    # eye at level 0, reject on Hamming > max_hamming). Adds two patch
+    # gathers + two pick matmuls + a right-image blur to each keyframe
+    # event. Measured on the KITTI-scale 3-seed sweep: ATE 0.179 m off vs
+    # 0.178 m on — the SAD uniqueness margin + positive-depth gate +
+    # BA's sigma trim already
     # reject what the gate would (classic StereoBM ships exactly this
     # uniqueness-only design). Re-enable for scenes with strongly
     # repetitive texture along epipolar lines (fences, facades).
@@ -177,7 +161,7 @@ class LocalBAConfig:
     # cover essentially ALL active window landmarks: 512 slots left the
     # un-refined remainder drifting at ~0.01 m/frame (measured); 1024
     # covers the ~4.5k-point claim-regime map's window at the same ATE
-    # as 2048 and ~6 fps more.
+    # as 2048 with half the slots.
     max_points: int = 1024
     max_obs_per_point: int = 8        # observations kept per point
     huber_delta: float = 2.4477468
@@ -203,10 +187,10 @@ class KeyframeConfig:
     # (a dense stereo supplier keeps every cell above min_per_cell while
     # drift accumulates).
     # measured sweep (KITTI-scale synthetic, 160 frames, claim-grid
-    # map): 0.2 -> 472 fps / 0.216 m / RPE 0.030; 0.25 -> 0.166 m but
-    # RPE 0.031; 0.3 -> 442 fps / 0.171 m / RPE 0.022; 0.35 -> 422 /
-    # 0.215; 0.4 -> 403 / 0.197 / 0.018. 0.3 is the knee: both the
-    # fps and the accuracy curve favor it.
+    # map), ATE / RPE: 0.2 -> 0.216 m / 0.030; 0.25 -> 0.166 m / 0.031;
+    # 0.3 -> 0.171 m / 0.022; 0.35 -> 0.215 m; 0.4 -> 0.197 m / 0.018.
+    # 0.3 is the knee of the accuracy curve, and higher ratios insert
+    # more keyframes.
     decay_ratio: float = 0.3
 
 
@@ -265,7 +249,7 @@ class LoopConfig:
     #                                   texture-aliased and the
     #                                   mostly-coplanar aug set admitted
     #                                   a tilted consensus (+2.5 m
-    #                                   vertical edge, BASELINE.md r5) —
+    #                                   vertical edge, r5 sweep) —
     #                                   re-evaluate on real imagery,
     #                                   whose near field is matchable
     min_matches: int = 40             # relative-pose acceptance — the
@@ -319,7 +303,7 @@ class LoopConfig:
     #                                   error through 122 inliers).
     #                                   Re-matching from the solved pose
     #                                   removes the selection bias.
-    #                                   Default 0 on the r5 on-chip
+    #                                   Default 0 on the r5
     #                                   sweep: one gated round trimmed
     #                                   the bench clothoid's edge 1.516
     #                                   -> 1.408 m but the seam landed
@@ -332,7 +316,7 @@ class LoopConfig:
     #                                   ungated refine rescued a
     #                                   34-inlier wrong candidate to 46
     #                                   self-consistent inliers at a
-    #                                   4.3 m edge (BASELINE.md r5).
+    #                                   4.3 m edge (r5 sweep).
     relpose_refine_radius: float = 1.0  # re-match radius, as a fraction
     #                                   of matcher.projection_radius. NOT
     #                                   tighter than the first pass: a
@@ -433,12 +417,11 @@ class LoopConfig:
     #                                   depth ratios; anchored inverse
     #                                   depths are rescaled with their
     #                                   keyframes. Default since the r3
-    #                                   on-chip A/B: even on stereo
+    #                                   A/B: even on stereo
     #                                   (baseline-fixed scale) the scale
     #                                   component absorbs residual drift —
     #                                   bench clothoid ATE 0.858 vs 0.947 m,
-    #                                   seam 1.382 vs 1.640 m, at equal
-    #                                   speed (346 vs 292 fps run pair).
+    #                                   seam 1.382 vs 1.640 m.
     #                                   "se3" remains selectable.
     info_scale: float = 100.0         # sigma-component info (sim3 edges)
     min_scale_pairs: int = 12         # matched depth-ratio pairs required

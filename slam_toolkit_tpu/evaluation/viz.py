@@ -3,7 +3,7 @@
 Replaces the reference's live Qt/VTK viewer (QMapViewer GT-vs-estimate
 trajectory drawing, ref src/qmap_viewer.cpp:237-366; CvViewer 2D
 keypoint/track overlay, :386-441) with headless matplotlib/PNG output —
-the right shape for TPU pods and CI. The GT curve is aligned to the
+the right shape for headless servers and CI. The GT curve is aligned to the
 estimate exactly like the reference re-aligns per keyframe via
 AlignTrajectory (src/optimizer.cpp:282-344), here with closed-form
 Umeyama.

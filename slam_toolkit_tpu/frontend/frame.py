@@ -1,6 +1,6 @@
 """Per-frame state: extraction + normalization as one jitted program.
 
-TPU-native replacement for Frame/StereoFrame construction
+Replacement for Frame/StereoFrame construction
 (ref src/frame.cpp:33-69): extract ORB features, pre-normalize all
 keypoints through the camera model (:52-56), and (for keyframes) extract
 the right image and stereo-match for depth (:384-409). There is no

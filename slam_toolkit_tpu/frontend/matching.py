@@ -81,8 +81,9 @@ def projection_match(Xw: jnp.ndarray, mp_desc: jnp.ndarray,
     uv = cam_mod.project(cam.left, Xc)
     visible = mp_valid & in_front & cam_mod.in_image(cam.left, uv)
 
-    # fused tiled kernel: Hamming + both radius gates + per-row top-2 in
-    # one pass, no (L, K) matrix in HBM. Validity folds into coordinates
+    # fused tiled kernel on CUDA (ops/match_kernel.py): Hamming + both
+    # radius gates + per-row top-2 in one pass, no (L, K) matrix in
+    # device memory. Validity folds into coordinates
     # (invalid entries pushed far apart so the radius gate rejects them).
     a_uv = jnp.where(visible[:, None], uv, 1e7)
     b_xy = jnp.where(frame_feats.valid[:, None], frame_feats.xy, -1e7)

@@ -23,6 +23,7 @@ from slam_toolkit_tpu.config import SlamConfig
 from slam_toolkit_tpu.frontend.frame import FrameState
 from slam_toolkit_tpu.frontend.matching import projection_match
 from slam_toolkit_tpu.geometry.camera import StereoCamera
+from slam_toolkit_tpu.ops import pose_lm_kernel
 from slam_toolkit_tpu.optim import pose_lm
 
 
@@ -31,8 +32,7 @@ class TrackResult(NamedTuple):
     mp_kpt: jnp.ndarray       # (L,) int32 keypoint index per landmark
     mp_xy: jnp.ndarray        # (L, 2) matched keypoint pixel coords —
     #                           already gathered in the tracker so the
-    #                           keyframe rule doesn't pay a second
-    #                           (L,)-gather (TPU 1D gathers serialize)
+    #                           keyframe rule doesn't gather them again
     mp_inlier: jnp.ndarray    # (L,) bool landmark tracked as inlier
     n_matches: jnp.ndarray    # () int32 matches fed to LM
     n_inliers: jnp.ndarray    # () int32 inliers after filtering
@@ -54,23 +54,16 @@ def track_pose(frame: FrameState, Xw: jnp.ndarray, mp_desc: jnp.ndarray,
                          cfg.matcher, cfg.matcher.projection_radius)
     kpt = m.kpt_idx
     # ONE (L, 5) table gather instead of three separate (L,)-gathers
-    # (norm_xy, sigma2, xy) — 1D gathers serialize on the TPU, ~22 us
-    # per 3072-row gather in traces; batching the columns pays it once
+    # (norm_xy, sigma2, xy)
     table = jnp.concatenate([frame.norm_xy, frame.feats.sigma2[:, None],
                              frame.feats.xy], axis=1)
     g = table[kpt]
     z_norm = g[:, :2]
     sigma2 = g[:, 2] / (cam.left.fx * cam.left.fx)
     xy_kpt = g[:, 3:5]
-    from slam_toolkit_tpu.ops import pose_lm_kernel
-    from slam_toolkit_tpu.utils.kernel_probe import use_pallas
-    if use_pallas("pose_lm", pose_lm_kernel._probe):
-        # whole-solver Pallas kernel: one op instead of ~200 small ones
-        res = pose_lm_kernel.optimize_pose(T_pred, Xw, z_norm, sigma2,
-                                           m.ok, cfg.tracker)
-    else:
-        res = pose_lm.optimize_pose(T_pred, Xw, z_norm, sigma2,
-                                    m.ok, cfg.tracker)
+    # whole-solver kernel on CUDA devices, the plain solver elsewhere
+    res = pose_lm_kernel.optimize_pose(T_pred, Xw, z_norm, sigma2, m.ok,
+                                       cfg.tracker)
 
     # reprojection filter in *pixels* (ref ReprojectionFilter(10px),
     # src/posetracker.cpp:106-137)

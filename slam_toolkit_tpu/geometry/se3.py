@@ -7,7 +7,7 @@ matrices; tangent vectors are (..., 6) with layout [rho(3), phi(3)]
 convention used by g2o's VertexSE3Expmap: T_new = Exp(xi) @ T_old.
 
 All functions broadcast over leading batch dimensions, making them safe
-under vmap/jit/scan on TPU (no data-dependent control flow; the
+under vmap/jit/scan (no data-dependent control flow; the
 small-angle branch is a jnp.where on Taylor expansions).
 """
 

@@ -125,10 +125,9 @@ def log(S: jnp.ndarray) -> jnp.ndarray:
     """(..., 4, 4) -> (..., 7) [rho, phi, sigma].
 
     rho deliberately stays a batched LU `linalg.solve` (not the ~30-op
-    adjugate inverse): a closed-form-inverse A/B on the on-chip loop
-    bench left the timing unchanged (the solve is NOT the sim3 closure
-    path's cost) while the f32 adjugate's round-off measurably moved
-    the pose-graph optimum (clothoid ATE 0.858 -> 1.465 m)."""
+    adjugate inverse): in a closed-form-inverse A/B on the loop bench
+    the f32 adjugate's round-off measurably moved the pose-graph
+    optimum (clothoid ATE 0.858 -> 1.465 m)."""
     s = scale_of(S)
     sigma = jnp.log(s)
     R = S[..., :3, :3] / s[..., None, None]

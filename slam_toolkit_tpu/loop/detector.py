@@ -6,7 +6,7 @@ inverted-file candidate retrieval (ref src/pipeline_map.cpp:151-272):
 - every keyframe's dense BoW vector lives in a (F, W) device matrix;
   a query scores against ALL keyframes in one masked reduction —
   feasible because F <= a few hundred, so the inverted file's pruning
-  buys nothing on TPU;
+  buys nothing on an accelerator;
 - minScore = min_score_ratio * best covisible-neighbor score
   (the author's deliberate deviation from ORB-SLAM2's min,
   ref src/loopdetector.cpp:51-76);

@@ -85,12 +85,11 @@ def build_problem(m: MapState, cam: StereoCamera,
 
     # invert the observation table: kpt_at[w, p] = keypoint index of
     # point p in window keyframe w (-1 = unobserved), as one dense
-    # (W, K, P) compare-reduce that XLA fuses onto the VPU (~35 us).
-    # The previous formulation — a rank-table gather over the 16k
-    # observation ids followed by 5 (W, P) scatters — serialized
-    # element by element on TPU (~0.4 ms per keyframe event; TPU has
-    # no vector gather/scatter). max() over k matches the scatter's
-    # last-write-wins on the (impossible-by-construction) duplicate.
+    # (W, K, P) compare-reduce that XLA fuses into one pass, instead of
+    # a rank-table gather over the 16k observation ids followed by 5
+    # (W, P) scatters (ROADMAP S9 A/Bs the two on the GPU). max() over
+    # k matches the scatter's last-write-wins on the
+    # (impossible-by-construction) duplicate.
     obs_ids = m.kf_obs[window]                         # (W, K)
     match = ((obs_ids[:, :, None] == pt_ids[None, None, :]) &
              (obs_ids >= 0)[:, :, None] & pt_valid[None, None, :])
@@ -101,9 +100,8 @@ def build_problem(m: MapState, cam: StereoCamera,
     safe_kpt = jnp.maximum(kpt_at, 0)
 
     # ONE packed (W, P, 5) gather for every per-observation channel
-    # (z_norm x/y, right-x, inv_sigma, has_stereo): TPU gathers pay per
-    # INDEX, not per byte, so three separate take_along_axis calls here
-    # cost ~184 us serialized per keyframe event vs ~85 us packed.
+    # (z_norm x/y, right-x, inv_sigma, has_stereo) instead of three
+    # separate take_along_axis calls.
     norm = m.kf_norm[window]                           # (W, K, 2)
     rxn = m.kf_right_x_norm[window]                    # (W, K)
     sigma2_n = m.kf_sigma2[window] / (cam.left.fx * cam.left.fx)
@@ -191,24 +189,15 @@ def local_ba_step(m: MapState, cam: StereoCamera, cfg: SlamConfig,
     ref src/pipeline.cpp:137-138)."""
     prob, window, pt_ids = build_problem(m, cam, cfg, window, win_valid,
                                          fixed_mask)
-    from slam_toolkit_tpu.ops import ba_kernel
-    from slam_toolkit_tpu.utils.kernel_probe import use_pallas
-    if use_pallas("local_ba", ba_kernel._probe):
-        # whole-solver Pallas kernel: ~4x faster, and pure f32 (the XLA
-        # path's bf16 geometry einsum needed a precision override)
-        solver = ba_kernel.solve_ba
-    else:
-        solver = solve_ba
-    res = solver(prob, iters=cfg.local_ba.num_iterations,
-                 huber_delta=cfg.local_ba.huber_delta,
-                 lambda0=cfg.local_ba.lm_lambda0,
-                 lambda_up=cfg.local_ba.lm_lambda_up,
-                 lambda_down=cfg.local_ba.lm_lambda_down,
-                 trim_sigma=cfg.local_ba.trim_sigma)
-    # belt-and-braces: a solver that returns ANY non-finite value is
-    # discarded wholesale (keep the pre-BA map). The kernels guard their
-    # own steps, but a single escaped NaN here poisons every later frame
-    # (round-1 bench died exactly this way — BENCH_r01.json).
+    res = solve_ba(prob, iters=cfg.local_ba.num_iterations,
+                   huber_delta=cfg.local_ba.huber_delta,
+                   lambda0=cfg.local_ba.lm_lambda0,
+                   lambda_up=cfg.local_ba.lm_lambda_up,
+                   lambda_down=cfg.local_ba.lm_lambda_down,
+                   trim_sigma=cfg.local_ba.trim_sigma)
+    # belt-and-braces: a solve that returns ANY non-finite value is
+    # discarded wholesale (keep the pre-BA map). The solver guards its
+    # own steps, but a single escaped NaN here poisons every later frame.
     ok = (jnp.isfinite(res.T_cw).all() & jnp.isfinite(res.Xw).all())
     res = BAResult(
         T_cw=jnp.where(ok, res.T_cw, prob.T_cw),

@@ -117,16 +117,13 @@ def cull_weak_mappoints(m: MapState, cur_frame_id, grace_frames: int = 12,
     # a landmark only had a chance to be re-observed if keyframes were
     # actually created after its anchor: require >= min_obs newer KFs.
     # Computed as a per-KF newer-count table (one fused (F, F)
-    # compare-reduce) — a sort+searchsorted here lowered to an 11-step
-    # serial while loop costing ~1 ms per keyframe event on a v5e (the
-    # whole branch was ~4 ms)
+    # compare-reduce) instead of a sort+searchsorted
     newer_tbl = jnp.sum(m.kf_valid[None, :] &
                         (m.kf_frame_id[None, :] > m.kf_frame_id[:, None]),
                         axis=1).astype(jnp.int32)
     # per-KF eligibility, applied per landmark as one (M, F) broadcast
-    # compare-reduce (~20 us fused on the VPU) — gathering the age and
-    # newer-count tables per landmark instead serializes element by
-    # element on TPU (2 x ~86 us per keyframe event at M=16k)
+    # compare-reduce instead of gathering the age and newer-count
+    # tables per landmark
     kf_elig = ((cur_frame_id - m.kf_frame_id > grace_frames) &
                (newer_tbl >= min_obs))
     elig = jnp.any(kf_elig[None, :] &
@@ -139,8 +136,7 @@ def cull_weak_mappoints(m: MapState, cur_frame_id, grace_frames: int = 12,
     # merge_mappoints only rewrites cells of LOSER landmarks (which it
     # invalidates) and only adopts into EMPTY cells (loop/closer.py:
     # 231-251). So the weak mask (which requires mp_valid) never needs
-    # a read-back guard — the guard was a 16k-element gather from the
-    # 2M obs table, ~116 us serialized per keyframe event on a v5e.
+    # a read-back guard (a 16k-element gather from the 2M obs table).
     # Drop-mode scatter straight into the (F*K,) view (the old concat-
     # sentinel + [:-1] slice copied the table twice more per event).
     obs_flat = m.kf_obs.reshape(-1)

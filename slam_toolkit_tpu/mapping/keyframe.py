@@ -25,9 +25,9 @@ def needs_keyframe(kpt_xy: jnp.ndarray, inlier: jnp.ndarray,
                   0, cfg.grid_rows - 1)
     cell = cy * cfg.grid_cols + cx
     ncells = cfg.grid_cols * cfg.grid_rows
-    # broadcast compare + reduce instead of a scatter-add: the (N,)
-    # scatter into `ncells` bins serialized (~27 us/frame in traces);
-    # the (ncells, N) one-hot sum fuses into one VPU pass
+    # broadcast compare + reduce instead of a scatter-add of the (N,)
+    # cells into `ncells` bins: the (ncells, N) one-hot sum fuses into
+    # one pass
     counts = jnp.sum((cell[None, :] == jnp.arange(ncells)[:, None]) &
                      inlier[None, :], axis=1).astype(jnp.int32)
     total = jnp.sum(counts)

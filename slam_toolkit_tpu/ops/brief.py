@@ -1,9 +1,9 @@
 """Intensity-centroid orientation + rotated BRIEF descriptors.
 
-TPU-native counterpart of the reference's IC_Angle
+Counterpart of the reference's IC_Angle
 (ref src/orb_extractor.cpp:77-104) and computeOrbDescriptor (:108-147):
 instead of per-keypoint C++ loops we gather K patch windows at once and
-reduce them on the VPU.
+reduce them as one batched array program.
 
 The 256 sampling pairs are generated here (seeded Gaussian sampling per
 the original BRIEF construction, sigma = patch/5, rejected to radius 14
@@ -53,8 +53,8 @@ def gather_patches(image: jnp.ndarray, centers_xy: jnp.ndarray,
     """Gather (K, 2r+1, 2r+1) patches at integer centers (x, y).
 
     Corners are clamped to the image; callers guarantee a detection border
-    so clamping only ever touches invalid (masked) keypoints. One Pallas
-    block-gather on TPU (ops/patches.py).
+    so clamping only ever touches invalid (masked) keypoints. One
+    batched window gather (ops/patches.py).
     """
     from slam_toolkit_tpu.ops.patches import gather_blocks
     h, w = image.shape
@@ -94,8 +94,8 @@ def dense_descriptor_map(blurred: jnp.ndarray) -> jnp.ndarray:
     """Upright BRIEF at EVERY pixel: (H, W, 8) packed uint32.
 
     The per-keypoint gather formulation costs ~0.5M random scalar
-    gathers per frame — the one thing a TPU does badly. Densely, each of
-    the 256 pattern comparisons is a shifted-image compare (pure VPU),
+    gathers per frame. Densely, each of the 256 pattern comparisons is
+    a shifted-image compare (pure elementwise),
     bit-packed with shifts/ors; keypoint descriptors then cost one
     8-word row gather each. Identical bits to compute_descriptors at
     angle 0 for integer keypoint coordinates.
@@ -134,8 +134,8 @@ def upright_patch_descriptors(blurred: jnp.ndarray,
     """Upright BRIEF at K keypoints via block loads: (K, 8) packed uint32.
 
     dense_descriptor_map computes 256 comparisons at EVERY pixel
-    (~0.5G ops/level); per-keypoint element gathers are the TPU's
-    weakest access pattern. This middle road vmaps dynamic_slice to load
+    (~0.5G ops/level) and per-keypoint element gathers read scattered
+    scalars. This middle road vmaps dynamic_slice to load
     one contiguous (31, 31) patch per keypoint, then evaluates the 256
     pattern comparisons as static in-patch picks — identical bits to
     lookup_descriptors(dense_descriptor_map(img), xy) for interior
@@ -154,13 +154,12 @@ def upright_patch_descriptors(blurred: jnp.ndarray,
     patches = gather_blocks(blurred, y0, x0, side, side)   # (K, 31, 31)
     flat = patches.reshape(patches.shape[0], side * side)
 
-    # the 256 comparisons as ONE MXU matmul: column k of D is
+    # the 256 comparisons as ONE matmul: column k of D is
     # e[idx_a[k]] - e[idx_b[k]], so bit_k = (va - vb < 0) = (flat@D)[k] < 0.
     # f32 path: HIGHEST precision keeps the difference exact. bf16 path
-    # (ExtractorConfig.descriptor_dtype): native MXU bf16 with f32
-    # accumulation — rounding only flips near-tie comparisons, measured
-    # ATE/RPE-neutral on the KITTI-scale bench at half the patch-gather
-    # HBM traffic.
+    # (ExtractorConfig.descriptor_dtype): bf16 operands with f32
+    # accumulation — rounding only flips near-tie comparisons, at half
+    # the patch-gather memory traffic.
     if flat.dtype == jnp.bfloat16:
         va_minus_vb = jnp.dot(
             flat, jnp.asarray(_pick_matrix()).astype(jnp.bfloat16),

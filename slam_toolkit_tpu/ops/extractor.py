@@ -53,13 +53,7 @@ def extract(image: jnp.ndarray, cfg: ExtractorConfig) -> FrameFeatures:
             continue
         # one-pass dual-threshold FAST: high-threshold corners outrank
         # low-threshold fallbacks via a +1e4 rank boost
-        thr_hi = float(cfg.fast_threshold_high) if cfg.dual_threshold \
-            else None
-        if cfg.fused_fast and border >= 5:
-            from slam_toolkit_tpu.ops import fast_kernel
-            eff = fast_kernel.detect(img_l, thr_hi,
-                                     float(cfg.fast_threshold_low), border)
-        elif cfg.dual_threshold:
+        if cfg.dual_threshold:
             eff = fast.detect_dual(img_l, float(cfg.fast_threshold_high),
                                    float(cfg.fast_threshold_low), border)
         else:

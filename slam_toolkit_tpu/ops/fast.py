@@ -3,7 +3,7 @@
 Replaces the per-cell OpenCV FAST calls of the reference
 (ref src/orb_extractor.cpp:769-829). Instead of a Python/C++ loop over
 30x30 cells with a high->low threshold retry, we compute a dense corner
-response over the whole level once (VPU-friendly: 16 shifted views +
+response over the whole level once (elementwise: 16 shifted views +
 bit-mask arc test), 3x3 non-max suppress, then take a per-cell top-k
 (ops/topk_grid.py) which plays the role of both the threshold fallback
 and the octree culling (ref :539-763) — a deterministic, shape-static
@@ -26,7 +26,7 @@ ARC_LENGTH = 9  # contiguous run required for a corner (FAST-9/16)
 
 def _arc_from_mask(m: jnp.ndarray) -> jnp.ndarray:
     """int32 bitmask (H, W) -> bool, True if >= ARC_LENGTH consecutive
-    circle bits (with wraparound) are set — pure VPU integer ops."""
+    circle bits (with wraparound) are set — pure elementwise integer ops."""
     m2 = m | (m << 16)
     r = m2
     for k in range(1, ARC_LENGTH):
@@ -38,7 +38,7 @@ def fast_response(image: jnp.ndarray, threshold: float) -> jnp.ndarray:
     """Dense FAST corner response map (H, W) float32; 0 where not a corner.
 
     Response is the sum over the circle of the excess beyond the threshold
-    on the dominant (brighter/darker) side — a VPU-cheap stand-in for
+    on the dominant (brighter/darker) side — an elementwise stand-in for
     OpenCV's max-threshold score with near-identical NMS ranking.
 
     Accumulates bitmasks and scores one shifted view at a time instead
@@ -132,10 +132,10 @@ def detect_dual(image: jnp.ndarray, thr_hi: float, thr_lo: float,
     threshold, then high-threshold survivors get the rank boost.
 
     Tried and rejected: collapsing to ONE shared NMS (boost hi-mask
-    corners on the lo response, then a single nms3x3) saves ~18 fps at
-    KITTI scale but lets strong corners suppress adjacent hi-threshold
-    survivors that the per-threshold NMS keeps; measured 3-seed ATE mean
-    0.222 m vs 0.176 m here — a 26% accuracy cost for 4% speed.
+    corners on the lo response, then a single nms3x3) saves one NMS pass
+    but lets strong corners suppress adjacent hi-threshold survivors
+    that the per-threshold NMS keeps; measured 3-seed ATE mean 0.222 m
+    vs 0.176 m here — a 26% accuracy cost.
     Also tried and rejected: keeping both NMS passes but ranking hi
     corners by their LO scores (drops the hi-score accumulation, 2 of 6
     selects per shifted view). The lo score is not rank-equivalent

@@ -1,122 +1,17 @@
-"""Pallas patch gather: (K, bh, bw) blocks from one image in one kernel.
+"""Patch gather: (K, bh, bw) blocks from one image at dynamic corners.
 
 Every per-keypoint window operation in this engine (BRIEF patches,
 IC-angle discs, subpixel-SAD strips — replacing the per-keypoint C++
 loops of ref src/orb_extractor.cpp:108-147 and the correlation windows
 ORB-SLAM-family stereo uses) needs "gather K small rectangles at
-dynamic offsets". Written as vmap(lax.dynamic_slice), XLA lowers that
-to a SEQUENTIAL while loop — one tiny dynamic-slice + dynamic-update-
-slice per keypoint, ~0.9 us each on a v5e (traced: these loops
-dominated the whole frame budget). This kernel keeps the image resident
-in VMEM and performs the K window reads on-chip.
-
-TPU vector loads need 8-aligned sublane / 128-aligned lane offsets, so
-each window is fetched as an ALIGNED super-window (rounded-down corner,
-rounded-up extent) and the residual offset is removed with two dynamic
-rotates (`pltpu.roll`) — a handful of VPU ops per keypoint instead of a
-serialized HBM round-trip. The image is padded on the host so aligned
-super-windows never run off the array.
-
-Grid = keypoint blocks of BK; the (pre-clamped) corner coordinates ride
-in as scalar-prefetch SMEM arrays so each program can address its
-windows before the body runs.
+dynamic offsets". Written as vmap(lax.dynamic_slice), XLA emits one
+parallel gather for the whole batch.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-
-_BK = 128  # keypoints per grid program
-
-
-def _rup(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _gather_blocks_fallback(img: jnp.ndarray, ys: jnp.ndarray,
-                            xs: jnp.ndarray, bh: int, bw: int) -> jnp.ndarray:
-    """vmap(dynamic_slice) reference semantics (used off-TPU)."""
-    def one(y, x):
-        return jax.lax.dynamic_slice(img, (y, x), (bh, bw))
-    return jax.vmap(one)(ys, xs)
-
-
-@functools.partial(jax.jit, static_argnames=("bh", "bw", "interpret"))
-def _gather_blocks_pallas(img: jnp.ndarray, ys: jnp.ndarray,
-                          xs: jnp.ndarray, bh: int, bw: int,
-                          interpret: bool = False) -> jnp.ndarray:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    h, w = img.shape
-    # native sublane tile: 8 rows for f32, 16 for bf16 (packed pairs)
-    su = 16 if img.dtype == jnp.bfloat16 else 8
-    wh = _rup(bh + su - 1, su)    # super-window extent (sublanes)
-    ww = _rup(bw + 127, 128)      # super-window extent (lanes)
-    # pad so the largest aligned corner still fits its super-window
-    hp = max(h, ((h - bh) // su) * su + wh)
-    wp = max(w, ((w - bw) // 128) * 128 + ww)
-    if (hp, wp) != (h, w):
-        img = jnp.pad(img, ((0, hp - h), (0, wp - w)))
-
-    k = ys.shape[0]
-    nb = -(-k // _BK)
-    kp = nb * _BK
-    if kp != k:
-        ys = jnp.pad(ys, (0, kp - k))
-        xs = jnp.pad(xs, (0, kp - k))
-
-    _U = 8   # keypoints per loop step (manual unroll — Mosaic's
-    #          fori_loop only supports unroll=1 or full): each window
-    #          read is a few VPU ops behind per-iteration loop and
-    #          scheduling overhead, so unrolling lets consecutive
-    #          keypoints' loads and rolls overlap
-
-    def kernel(ys_ref, xs_ref, img_ref, out_ref):
-        i = pl.program_id(0)
-
-        def body(j, c):
-            for u in range(_U):
-                kk = i * _BK + j * _U + u
-                y, x = ys_ref[kk], xs_ref[kk]
-                ya = pl.multiple_of((y // su) * su, su)
-                xa = pl.multiple_of((x // 128) * 128, 128)
-                win = img_ref[pl.ds(ya, wh), pl.ds(xa, ww)]
-                # Mosaic's dynamic_rotate is 32-bit only: upcast bf16
-                # windows for the rolls (VMEM-local; HBM stays bf16)
-                if win.dtype == jnp.bfloat16:
-                    win = win.astype(jnp.float32)
-                # dynamic NEGATIVE shifts miscompile on Mosaic (v5e, jax
-                # 0.9): roll left by r == roll right by (size - r) % size.
-                # Lane roll FIRST, then slice lanes to bw, THEN the
-                # sublane roll: the sublane roll runs on a (wh, bw)-shaped
-                # value instead of (wh, ww) — measured 24% off the whole
-                # kernel at production shape (0.267 -> 0.203 ms per 2048
-                # gathers).
-                win = pltpu.roll(win, (ww - (x - xa)) % ww, 1)
-                win = win[:, :bw]
-                win = pltpu.roll(win, (wh - (y - ya)) % wh, 0)
-                out_ref[j * _U + u] = win[:bh].astype(out_ref.dtype)
-            return c
-
-        jax.lax.fori_loop(0, _BK // _U, body, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(nb,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((_BK, bh, bw), lambda i, *_: (i, 0, 0)),
-    )
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((kp, bh, bw), img.dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(ys, xs, img)
-    return out[:k]
 
 
 def gather_blocks(img: jnp.ndarray, ys: jnp.ndarray, xs: jnp.ndarray,
@@ -124,27 +19,10 @@ def gather_blocks(img: jnp.ndarray, ys: jnp.ndarray, xs: jnp.ndarray,
     """(K,) int32 pre-clamped corners -> (K, bh, bw) windows of img.
 
     Callers must guarantee 0 <= ys <= H-bh and 0 <= xs <= W-bw.
-    TPU: single Pallas kernel (image VMEM-resident). Elsewhere: the
-    vmap(dynamic_slice) fallback with identical semantics.
     """
     ys = ys.astype(jnp.int32)
     xs = xs.astype(jnp.int32)
-    from slam_toolkit_tpu.utils.kernel_probe import use_pallas
-    if img.dtype == jnp.bfloat16:
-        if use_pallas("patch_gather_bf16", _probe_bf16):
-            return _gather_blocks_pallas(img, ys, xs, bh, bw)
-    elif use_pallas("patch_gather", _probe):
-        return _gather_blocks_pallas(img, ys, xs, bh, bw)
-    return _gather_blocks_fallback(img, ys, xs, bh, bw)
 
-
-def _probe():
-    img = jnp.zeros((64, 256), jnp.float32)
-    idx = jnp.zeros((8,), jnp.int32)
-    jax.block_until_ready(_gather_blocks_pallas(img, idx, idx, 37, 37))
-
-
-def _probe_bf16():
-    img = jnp.zeros((64, 256), jnp.bfloat16)
-    idx = jnp.zeros((8,), jnp.int32)
-    jax.block_until_ready(_gather_blocks_pallas(img, idx, idx, 37, 37))
+    def one(y, x):
+        return jax.lax.dynamic_slice(img, (y, x), (bh, bw))
+    return jax.vmap(one)(ys, xs)

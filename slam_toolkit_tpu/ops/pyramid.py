@@ -67,9 +67,8 @@ def _resize_matrix(n_in: int, n_out: int):
 def resize_bilinear(image: jnp.ndarray, out_hw: Tuple[int, int]) -> jnp.ndarray:
     """Bilinear resize of a 2D image to a static target shape.
 
-    Expressed as two banded interpolation MATMULS (out = Ry @ img @ Cx^T):
-    column gathers are among the slowest TPU ops, while the MXU eats
-    these small dense contractions for free.
+    Expressed as two banded interpolation MATMULS (out = Ry @ img @ Cx^T)
+    instead of column gathers (ROADMAP S9 A/Bs the two on the GPU).
     """
     h, w = image.shape
     oh, ow = out_hw
@@ -77,10 +76,10 @@ def resize_bilinear(image: jnp.ndarray, out_hw: Tuple[int, int]) -> jnp.ndarray:
         return image
     Ry = jnp.asarray(_resize_matrix(h, oh), image.dtype)
     Cx = jnp.asarray(_resize_matrix(w, ow), image.dtype)
-    # 3-pass bf16 (HIGH) matches f32 to ~1e-3 on 0..255 intensities —
-    # far below the FAST thresholds (7/20) and BRIEF comparison noise —
-    # at half the MXU passes of HIGHEST; single-pass bf16 (DEFAULT) is
-    # NOT enough (its ~0.4% error shifts FAST corners and flips bits)
+    # HIGH matches f32 to ~1e-3 on 0..255 intensities — far below the
+    # FAST thresholds (7/20) and BRIEF comparison noise; single-pass
+    # bf16 (DEFAULT) is NOT enough (its ~0.4% error shifts FAST corners
+    # and flips bits). What HIGH lowers to on the GPU is ROADMAP S10.
     hp = jax.lax.Precision.HIGH
     return jnp.matmul(jnp.matmul(Ry, image, precision=hp), Cx.T,
                       precision=hp)
@@ -133,8 +132,8 @@ def build_pyramid(image: jnp.ndarray, cfg: ExtractorConfig) -> List[jnp.ndarray]
     level from level 0, since source sizes shrink geometrically.
 
     poly mode replaces the banded interpolation matmuls with the exact
-    6:5 polyphase shift-add (see _POLY_W0): bandwidth-bound VPU work in
-    full f32 instead of 3-pass bf16 MXU contractions."""
+    6:5 polyphase shift-add (see _POLY_W0): bandwidth-bound elementwise
+    work in full f32 instead of reduced-precision matmuls."""
     h, w = image.shape
     out = [image]
     if _use_poly(cfg):
@@ -162,9 +161,7 @@ def gaussian_blur(image: jnp.ndarray, size: int = 7,
 
     Matches the pre-BRIEF GaussianBlur(7x7, sigma=2, BORDER_REFLECT_101)
     at ref src/orb_extractor.cpp:1086. Implemented as weighted shifted
-    adds, NOT lax.conv: a single-channel conv leaves the MXU 99% idle
-    and ran at 8 GFLOP/s in traces; shift-add is pure VPU at full HBM
-    bandwidth.
+    adds (one elementwise stream at memory bandwidth), not lax.conv.
     """
     k = _gaussian_kernel1d(size, sigma)
     half = size // 2

@@ -1,14 +1,14 @@
-"""Separable correlations as banded-matrix matmuls on the MXU.
+"""Separable correlations as banded-matrix matmuls.
 
 A k-tap 1-D correlation along an axis of length N is the product with an
-(N, N) banded matrix. On TPU this trades k-times-N VPU work for a full
-N^2 MXU contraction — a ~65x FLOP "waste" that is still ~10x faster in
-wall time, because the MXU's matmul throughput dwarfs the VPU and a
-1-channel `lax.conv` cannot tile onto it at all (the same trade the
-extractor's matmul pyramid makes, ops/pyramid.py). Used by the dense
-workload's stereo block matching and Farneback flow
+(N, N) banded matrix: k-times-N elementwise work traded for a full N^2
+matrix contraction, a ~65x FLOP "waste" (the same trade the extractor's
+matmul pyramid makes, ops/pyramid.py). Whether direct shifted adds or
+`lax.conv` are faster on the GPU is ROADMAP S3; the contractions run at
+the default matmul precision (TF32 on the GPU), ROADMAP S10. Used by the
+dense workload's stereo block matching and Farneback flow
 (ref examples/epip_cluster/src/tracker.cpp:54-57 — the components the
-reference pushes to CUDA for exactly this cost).
+reference pushes to CUDA).
 
 Boundary handling is edge-replication (matches `mode='edge'` padding):
 out-of-range taps accumulate onto the border element of the band
@@ -60,5 +60,5 @@ def correlate_h(x: jnp.ndarray, taps, dtype=jnp.float32) -> jnp.ndarray:
 def sep_correlate2d(x: jnp.ndarray, kx, ky,
                     dtype=jnp.float32) -> jnp.ndarray:
     """Separable 2-D correlation (rows taps `ky`, cols taps `kx`) with
-    edge padding, over the last two axes, as two MXU matmuls."""
+    edge padding, over the last two axes, as two matmuls."""
     return correlate_w(correlate_h(x, ky, dtype), kx, dtype)

@@ -1,4 +1,4 @@
-"""Left-anchored SAD stereo: per-keypoint correlation sweep, one kernel.
+"""Left-anchored SAD stereo: per-keypoint correlation sweep.
 
 The reference finds stereo depth by fully extracting ORB on the right
 image and descriptor-matching along row bands (ref src/frame.cpp:384-389,
@@ -12,20 +12,17 @@ right row, take the subpixel parabola minimum, and gate on uniqueness.
 Same product (subpixel right-x per left keypoint), ~5x less work, and
 no dependence on right-image feature repeatability.
 
-The Pallas kernel keeps both images VMEM-resident and emits the whole
-(K, NS) SAD curve; argmin / parabola / uniqueness run vectorized in XLA.
+One gather of the left windows and right strips feeds a fused
+abs-diff-sum over all shifts; argmin / parabola / uniqueness run
+vectorized on the (K, NS) curve.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 
 WIN = 5                  # half window -> 11x11
 PAD = 1                  # parabola neighbors beyond the disparity range
-_BK = 128
 
 
 def _shifts(max_disp: int) -> int:
@@ -36,13 +33,9 @@ def _strip_w(max_disp: int) -> int:
     return (2 * WIN + 1) + max_disp + 2 * PAD
 
 
-def _rup(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 def _sad_from_blocks(patch_l: jnp.ndarray, strip: jnp.ndarray,
                      ns: int) -> jnp.ndarray:
-    """(K, 11, 11) x (K, 11, SW) -> (K, NS) SAD curves (shared math)."""
+    """(K, 11, 11) x (K, 11, SW) -> (K, NS) SAD curves."""
     acc = None
     side = 2 * WIN + 1
     for c in range(side):
@@ -51,94 +44,14 @@ def _sad_from_blocks(patch_l: jnp.ndarray, strip: jnp.ndarray,
     return jnp.sum(acc, axis=1)
 
 
-def _curve_fallback(img_l, img_r, ys0, xl0, xs0, max_disp):
+def sad_curve(img_l, img_r, ys0, xl0, xs0, max_disp):
+    """(K, NS) SAD of each left 11x11 window against every shift of its
+    right-image strip (corners pre-clamped by the caller)."""
     from slam_toolkit_tpu.ops.patches import gather_blocks
     side = 2 * WIN + 1
     patch_l = gather_blocks(img_l, ys0, xl0, side, side)
     strip = gather_blocks(img_r, ys0, xs0, side, _strip_w(max_disp))
     return _sad_from_blocks(patch_l, strip, _shifts(max_disp))
-
-
-@functools.partial(jax.jit, static_argnames=("max_disp", "interpret"))
-def _curve_pallas(img_l, img_r, ys0, xl0, xs0, max_disp: int,
-                  interpret: bool = False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    side = 2 * WIN + 1
-    sw = _strip_w(max_disp)
-    ns = _shifts(max_disp)
-    h, w = img_l.shape
-    wh = _rup(side + 7, 8)
-    ww_p = _rup(side + 127, 128)
-    ww_s = _rup(sw + 127, 128)
-    hp = max(h, ((h - side) // 8) * 8 + wh)
-    wp = max(w, ((w - side) // 128) * 128 + ww_p,
-             ((w - sw) // 128) * 128 + ww_s)
-    if (hp, wp) != (h, w):
-        img_l = jnp.pad(img_l, ((0, hp - h), (0, wp - w)))
-        img_r = jnp.pad(img_r, ((0, hp - h), (0, wp - w)))
-
-    k = ys0.shape[0]
-    nb = -(-k // _BK)
-    kp = nb * _BK
-    if kp != k:
-        ys0 = jnp.pad(ys0, (0, kp - k))
-        xl0 = jnp.pad(xl0, (0, kp - k))
-        xs0 = jnp.pad(xs0, (0, kp - k))
-
-    def load(img_ref, y, x, ww, bw):
-        ya = pl.multiple_of((y // 8) * 8, 8)
-        xa = pl.multiple_of((x // 128) * 128, 128)
-        win = img_ref[pl.ds(ya, wh), pl.ds(xa, ww)]
-        # lane roll first, slice lanes, then the (cheaper) sublane roll
-        # on the narrowed value — same trick as ops/patches.py
-        win = pltpu.roll(win, (ww - (x - xa)) % ww, 1)
-        win = win[:, :bw]
-        win = pltpu.roll(win, (wh - (y - ya)) % wh, 0)
-        return win[:side]
-
-    def kernel(ys_ref, xl_ref, xs_ref, l_ref, r_ref, out_ref):
-        i = pl.program_id(0)
-
-        # NOTE: manually unrolling this loop 8x was measured ~2x SLOWER
-        # on a v5e (644 -> 1220 us per 2048 keypoints in the bench
-        # trace) — the widened body spills VMEM registers; keep the
-        # plain per-keypoint loop.
-        def body(j, c):
-            kk = i * _BK + j
-            y = ys_ref[kk]
-            patch = load(l_ref, y, xl_ref[kk], ww_p, side)
-            strip = load(r_ref, y, xs_ref[kk], ww_s, sw)
-            acc = jnp.zeros((side, ns), jnp.float32)
-            for cc in range(side):
-                acc = acc + jnp.abs(strip[:, cc:cc + ns] - patch[:, cc:cc + 1])
-            out_ref[pl.ds(j, 1), :] = jnp.sum(acc, axis=0, keepdims=True)
-            return c
-
-        jax.lax.fori_loop(0, _BK, body, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(nb,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((_BK, ns), lambda i, *_: (i, 0)),
-    )
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((kp, ns), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(ys0, xl0, xs0, img_l, img_r)
-    return out[:k]
-
-
-def _probe():
-    img = jnp.zeros((64, 512), jnp.float32)
-    idx = jnp.full((8,), 16, jnp.int32)
-    jax.block_until_ready(
-        _curve_pallas(img, img, idx, idx, idx, 100))
 
 
 def match(img_left: jnp.ndarray, img_right: jnp.ndarray,
@@ -166,11 +79,7 @@ def match(img_left: jnp.ndarray, img_right: jnp.ndarray,
     xs0 = jnp.clip(xs0r, 0, w - sw)
     clamped = (ys0 != ys0r) | (xl0 != xl0r)
 
-    from slam_toolkit_tpu.utils.kernel_probe import use_pallas
-    if use_pallas("stereo_sad", _probe):
-        sad = _curve_pallas(img_left, img_right, ys0, xl0, xs0, max_disp)
-    else:
-        sad = _curve_fallback(img_left, img_right, ys0, xl0, xs0, max_disp)
+    sad = sad_curve(img_left, img_right, ys0, xl0, xs0, max_disp)
 
     col = jnp.arange(ns, dtype=jnp.float32)[None, :]
     inner = (col >= 1) & (col <= ns - 2)

@@ -5,8 +5,8 @@ The reference pairs integer keypoint coordinates directly
 ~1px and, at stereo depth z = fx*b/d (src/frame.cpp:391-409), produces
 z^2/(fx*b) metric depth error. ORB-SLAM-family systems counter this with
 a correlation sweep along the epipolar row; we implement that as K
-vmapped dynamic_slice block loads (contiguous rows — random element
-gathers are the TPU's weakest op), one (11, 11+2*SEARCH) strip per
+vmapped dynamic_slice block loads (contiguous rows instead of random
+element gathers), one (11, 11+2*SEARCH) strip per
 keypoint, scored at all shifts via static slices, then a 3-point
 parabola for the subpixel minimum.
 """
@@ -23,7 +23,7 @@ SEARCH = 3     # +/- candidate integer shifts around the matched x
 def _slice_blocks(img: jnp.ndarray, y0: jnp.ndarray, x0: jnp.ndarray,
                   bh: int, bw: int) -> jnp.ndarray:
     """(K,) corner coords -> (K, bh, bw) blocks (corners pre-clamped by
-    the caller); one Pallas block-gather on TPU (ops/patches.py)."""
+    the caller); one batched window gather (ops/patches.py)."""
     from slam_toolkit_tpu.ops.patches import gather_blocks
     return gather_blocks(img, y0, x0, bh, bw)
 

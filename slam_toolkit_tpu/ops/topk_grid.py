@@ -4,7 +4,7 @@ Deterministic, shape-static replacement for the reference's quad-tree
 culling (DistributeOctTree, ref src/orb_extractor.cpp:539-763) and its
 per-cell high/low-threshold retry (:769-829). The goal is identical —
 N keypoints spread uniformly over the image, strongest response first —
-but expressed as two top-k reductions that XLA maps onto the VPU.
+but expressed as two top-k reductions that XLA fuses.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def _topk_rows(cells: jnp.ndarray, k: int):
 
     Matches lax.top_k output (values descending, ties in index order) but
     avoids its full-sort custom call — for small k the k*6 elementwise
-    passes are several times cheaper on the VPU than sorting 900-wide
+    passes measured several times cheaper than sorting 900-wide
     rows. (An .at[...] scatter variant of this loop was tried and is
     slower: the scatter rewrites the whole array per pass; the `where` on
     a broadcast column-index compare fuses instead.)

@@ -1,6 +1,6 @@
 """Direct photometric pose alignment: 8-DoF (SE3 + affine brightness) LM.
 
-TPU-native counterpart of the reference's direct method, which exists in
+Counterpart of the reference's direct method, which exists in
 the tree but is not wired into its Pipeline (DirectStereoMethod,
 ref src/method.cpp:128-191; BrightenDirectPoseTracker,
 src/posetracker.cpp:250-353; photometric edge EdgeProjectBrightenXYZ with
@@ -53,13 +53,12 @@ def _pattern_samples(image: jnp.ndarray, uv: jnp.ndarray):
 
     The previous formulation bilinear-sampled every pattern point and
     every gradient-stencil shift independently — ~160 random image
-    gathers per landmark per residual call, which XLA lowers to
-    element-at-a-time loops on TPU (the direct-method bench ran at
-    6.8 fps, ~147 ms/frame of device time, dominated by these). The
+    gathers per landmark per residual call (whether plain bilinear
+    gathers are faster on the GPU is ROADMAP S6). The
     pattern spans +-2 px, bilinear needs +1 and the +-0.5 gradient
     stencil another half-pixel, so every integer pixel any sample
     touches lives in [floor(uv)-3, floor(uv)+4]: gather that 8x8 window
-    once (ops/patches.gather_blocks — the same Pallas kernel the
+    once (ops/patches.gather_blocks — the same window gather the
     extractor's BRIEF patches use) and resample it into shifted 7x7
     grids (grid(f)[r, c] = bilinear image value at a static integer
     offset plus the per-landmark fraction f). Pattern intensities index

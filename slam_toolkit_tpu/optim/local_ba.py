@@ -31,6 +31,11 @@ import jax.numpy as jnp
 from slam_toolkit_tpu.geometry import se3
 from slam_toolkit_tpu.optim import robust
 
+# every contraction of the solve runs in full f32: the GPU's default for
+# f32 dots is TF32 (~3 decimal digits), which the whitened ~1e6-scale
+# normal equations and the Schur complement cannot absorb
+_HI = jax.lax.Precision.HIGHEST
+
 
 class BAProblem(NamedTuple):
     T_cw: jnp.ndarray        # (W, 4, 4) initial keyframe poses
@@ -76,12 +81,10 @@ def _edge_terms(T_cw, Xw, z, inv_sigma, w_mask, s_mask, baseline, delta,
     """
     R = T_cw[:, :3, :3]                        # (W, 3, 3)
     t = T_cw[:, :3, 3]                         # (W, 3)
-    # HIGHEST precision: the TPU default rounds the ~100 m coordinates
-    # to bf16, which after 1/sigma whitening injects multi-sigma noise
-    # into every residual (the solver then rejects all its steps).
-    # The contraction is only 3-wide — the cost is negligible.
-    Xc = jnp.einsum('wij,pj->wpi', R, Xw,
-                    precision=jax.lax.Precision.HIGHEST) + t[:, None, :]
+    # full f32: reduced precision on the ~100 m coordinates injects
+    # multi-sigma noise into every whitened residual (the solver then
+    # rejects all its steps). The contraction is only 3-wide.
+    Xc = jnp.einsum('wij,pj->wpi', R, Xw, precision=_HI) + t[:, None, :]
     x, y, zc = Xc[..., 0], Xc[..., 1], Xc[..., 2]
     good = zc > 1e-3
     zs = jnp.where(good, zc, 1.0)
@@ -109,10 +112,11 @@ def _edge_terms(T_cw, Xw, z, inv_sigma, w_mask, s_mask, baseline, delta,
 
     # pose: dXc/dxi = [I | -hat(Xc)]  (left-mult update)
     hatX = se3.hat(Xc)                                       # (W, P, 3, 3)
-    Jp = jnp.concatenate([dpi, -jnp.einsum('wpab,wpbc->wpac', dpi, hatX)],
+    Jp = jnp.concatenate([dpi, -jnp.einsum('wpab,wpbc->wpac', dpi, hatX,
+                                           precision=_HI)],
                          axis=-1)                            # (W, P, 3, 6)
     # point: dXc/dXw = R_w
-    Jl = jnp.einsum('wpab,wbc->wpac', dpi, R)                # (W, P, 3, 3)
+    Jl = jnp.einsum('wpab,wbc->wpac', dpi, R, precision=_HI)  # (W, P, 3, 3)
     return r, w_rob, Jp, Jl, row_w
 
 
@@ -124,8 +128,7 @@ def _residual_terms(T_cw, Xw, z, inv_sigma, w_mask, s_mask, baseline):
     tensors that were thrown away."""
     R = T_cw[:, :3, :3]
     t = T_cw[:, :3, 3]
-    Xc = jnp.einsum('wij,pj->wpi', R, Xw,
-                    precision=jax.lax.Precision.HIGHEST) + t[:, None, :]
+    Xc = jnp.einsum('wij,pj->wpi', R, Xw, precision=_HI) + t[:, None, :]
     x, y, zc = Xc[..., 0], Xc[..., 1], Xc[..., 2]
     good = zc > 1e-3
     zs = jnp.where(good, zc, 1.0)
@@ -141,8 +144,8 @@ def _residual_terms(T_cw, Xw, z, inv_sigma, w_mask, s_mask, baseline):
 def _inv3x3(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form batched 3x3 inverse (adjugate/determinant).
 
-    jnp.linalg.inv lowers to a vmapped LU that ran ~0.8 ms per call in
-    traces; the cofactor form is ~30 elementwise ops on the VPU.
+    The cofactor form is ~30 elementwise ops instead of jnp.linalg.inv's
+    vmapped LU.
     """
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -210,11 +213,16 @@ def solve_ba(p: BAProblem, iters: int = 10, huber_delta: float = 2.4477468,
         # (and the Schur coupling) only the FREE points' — a fixed point
         # contributes exactly a constant-point pose edge.
         w_rob_l = w_rob * free_pt[None, :, None].astype(jnp.float32)
-        Hpp = jnp.einsum('wpra,wpr,wprb->wab', Jp, w_rob, Jp)   # (W, 6, 6)
-        Hll = jnp.einsum('wpra,wpr,wprb->pab', Jl, w_rob_l, Jl)  # (P, 3, 3)
-        Hpl = jnp.einsum('wpra,wpr,wprb->wpab', Jp, w_rob_l, Jl)  # (W,P,6,3)
-        bp = -jnp.einsum('wpra,wpr,wpr->wa', Jp, w_rob, r)      # (W, 6)
-        bl = -jnp.einsum('wpra,wpr,wpr->pa', Jl, w_rob_l, r)    # (P, 3)
+        Hpp = jnp.einsum('wpra,wpr,wprb->wab', Jp, w_rob, Jp,
+                         precision=_HI)                         # (W, 6, 6)
+        Hll = jnp.einsum('wpra,wpr,wprb->pab', Jl, w_rob_l, Jl,
+                         precision=_HI)                         # (P, 3, 3)
+        Hpl = jnp.einsum('wpra,wpr,wprb->wpab', Jp, w_rob_l, Jl,
+                         precision=_HI)                         # (W,P,6,3)
+        bp = -jnp.einsum('wpra,wpr,wpr->wa', Jp, w_rob, r,
+                         precision=_HI)                         # (W, 6)
+        bl = -jnp.einsum('wpra,wpr,wpr->pa', Jl, w_rob_l, r,
+                         precision=_HI)                         # (P, 3)
 
         # damping; absolute floors keep Hll_inv bounded in f32 — without
         # them a weakly-constrained point block inverts to ~1e16 and the
@@ -230,11 +238,14 @@ def solve_ba(p: BAProblem, iters: int = 10, huber_delta: float = 2.4477468,
         Hll_inv = _inv3x3(Hll_d)                                # (P, 3, 3)
 
         # Schur complement S = Hpp - Hpl Hll^-1 Hlp, rhs = bp - Hpl Hll^-1 bl
-        HplHinv = jnp.einsum('wpab,pbc->wpac', Hpl, Hll_inv)    # (W, P, 6, 3)
-        S_off = jnp.einsum('ipac,jpbc->ijab', HplHinv, Hpl)     # (W, W, 6, 6)
+        HplHinv = jnp.einsum('wpab,pbc->wpac', Hpl, Hll_inv,
+                             precision=_HI)                     # (W, P, 6, 3)
+        S_off = jnp.einsum('ipac,jpbc->ijab', HplHinv, Hpl,
+                           precision=_HI)                       # (W, W, 6, 6)
         S = -S_off
         S = S.at[jnp.arange(W), jnp.arange(W)].add(Hpp_d)
-        rhs = bp - jnp.einsum('wpab,pb->wa', HplHinv, bl)       # (W, 6)
+        rhs = bp - jnp.einsum('wpab,pb->wa', HplHinv, bl,
+                              precision=_HI)                    # (W, 6)
 
         # freeze fixed/invalid poses: identity rows/cols, zero rhs
         fp = free_pose.astype(jnp.float32)
@@ -248,8 +259,8 @@ def solve_ba(p: BAProblem, iters: int = 10, huber_delta: float = 2.4477468,
         dp = dp * fp[:, None]
 
         # back-substitute points: dl = Hll^-1 (bl - Hlp^T dp)
-        Hlp_dp = jnp.einsum('wpab,wa->pb', Hpl, dp)             # (P, 3)
-        dl = jnp.einsum('pab,pb->pa', Hll_inv, bl - Hlp_dp)
+        Hlp_dp = jnp.einsum('wpab,wa->pb', Hpl, dp, precision=_HI)  # (P, 3)
+        dl = jnp.einsum('pab,pb->pa', Hll_inv, bl - Hlp_dp, precision=_HI)
         dl = jnp.where(pt_active[:, None], dl, 0.0)
 
         T_try = jnp.where(free_pose[:, None, None],

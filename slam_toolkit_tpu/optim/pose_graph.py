@@ -19,7 +19,7 @@ group's (log, inv, exp-update, adjoint) — the only structural
 difference between the two.
 
 Fixed shapes: N pose slots, E edge slots, masked. The normal system is
-(D*N, D*N) dense — at N <= 512 keyframes that is a small MXU solve and
+(D*N, D*N) dense — at N <= 512 keyframes that is a small dense solve and
 entirely fusable, so no sparse machinery is needed.
 """
 

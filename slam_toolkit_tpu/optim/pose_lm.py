@@ -23,6 +23,8 @@ from slam_toolkit_tpu.config import TrackerConfig
 from slam_toolkit_tpu.geometry import se3
 from slam_toolkit_tpu.optim import robust
 
+_HI = jax.lax.Precision.HIGHEST
+
 
 class PoseLMResult(NamedTuple):
     T_cw: jnp.ndarray        # (4, 4) optimized pose
@@ -145,9 +147,11 @@ def optimize_pose(T_init: jnp.ndarray, Xw: jnp.ndarray, z_norm: jnp.ndarray,
         rn = jnp.linalg.norm(r, axis=-1)
         w_rob = w * robust.huber_weight(rn, cfg.huber_delta)
         J = _jacobian(Xc, inv_sigma, stereo)
-        # H = sum_i w_i J_i^T J_i ; b = -sum_i w_i J_i^T r_i
-        H = jnp.einsum('nri,n,nrj->ij', J, w_rob, J)
-        b = -jnp.einsum('nri,n,nr->i', J, w_rob, r)
+        # H = sum_i w_i J_i^T J_i ; b = -sum_i w_i J_i^T r_i, in full
+        # f32: a TF32 contraction (the GPU default for f32 dots) rounds
+        # the ~1e6..1e9-magnitude whitened terms to ~3 decimal digits
+        H = jnp.einsum('nri,n,nrj->ij', J, w_rob, J, precision=_HI)
+        b = -jnp.einsum('nri,n,nr->i', J, w_rob, r, precision=_HI)
         H_damped = H + lam * jnp.diag(jnp.diag(H)) + 1e-9 * jnp.eye(6)
         xi = jnp.linalg.solve(H_damped, b)
         T_try = se3.normalize(se3.compose(se3.exp(xi), T))

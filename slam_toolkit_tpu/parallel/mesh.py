@@ -1,12 +1,13 @@
 """Multi-sequence SLAM over a device mesh.
 
 The reference is strictly single-process/single-sequence (SURVEY.md
-§2.4); the TPU-native scale axis is data parallelism over independent
-sequences (BASELINE.json config 5: "vmap N KITTI sequences across a TPU
-mesh"). Every per-sequence program in this engine is pure and
-shape-static, so batching is literally vmap + sharding annotations:
-each device tracks its own sequences, no collectives on the hot path
-(embarrassingly parallel; ICI only pays for parameter broadcast).
+§2.4); the scale axis here is data parallelism over independent
+sequences ("vmap N KITTI sequences across a device mesh"). Every
+per-sequence program in this engine is pure and shape-static, so
+batching is literally vmap + sharding annotations: each device tracks
+its own sequences, no collectives on the hot path (embarrassingly
+parallel). The mesh is one flat `seq` axis: every card reaches every
+other at the same rate, so no other shape would help.
 """
 
 from __future__ import annotations
@@ -130,7 +131,7 @@ def multi_sequence_engine(cfg: SlamConfig, cam: StereoCamera, mesh: Mesh):
     decision, stereo landmark supply, keyframe insertion, weak-mappoint
     culling, and local BA — the complete scan-engine frame body
     (pipeline/scan_engine.make_frame_body) vmapped over the `seq` axis,
-    so per-sequence maps GROW independently (BASELINE.json config 5).
+    so per-sequence maps GROW independently.
 
     Returns (bootstrap, step):
       bootstrap(maps, lefts, rights) -> carry          (frame 0 per seq)
@@ -222,8 +223,8 @@ def multi_sequence_shard_chunk(cfg: SlamConfig, cam: StereoCamera,
     local lanes), so the keyframe lax.cond remains genuine per-device
     control flow and each chip only pays keyframe events its own
     sequences trigger. Sequences are independent, so the lowered program
-    has ZERO collectives; ICI stays idle and scaling is linear in
-    devices. vmap remains the right tool for intra-chip lane batching of
+    has ZERO collectives and the inter-card links stay idle. vmap
+    remains the right tool for intra-chip lane batching of
     branch-free stages, shard_map for the cross-chip axis.
 
     carry: batched pytree with leading axis B sharded over `seq`

@@ -1,6 +1,6 @@
 """Color k-means quantization + edge maps over a KITTI sequence.
 
-TPU-native counterpart of the reference's epip_cluster auxiliary
+Counterpart of the reference's epip_cluster auxiliary
 scripts (ref examples/epip_cluster/scripts/kmean.py — per-frame
 cv.kmeans color quantization followed by Canny; and line.py, an
 abandoned edge-display stub): Lloyd iterations run as one jitted
@@ -32,8 +32,7 @@ def kmeans_quantize(pixels: jnp.ndarray, init: jnp.ndarray,
     """Lloyd k-means on (P, C) float pixels. Returns (labels, centers).
 
     Mirrors cv.kmeans(Z, K, ..., 10 iters) from the reference script;
-    the assignment step is a (P, K) distance matmul-style reduction —
-    MXU-friendly at image scale.
+    the assignment step is one (P, K) distance reduction.
     """
 
     def step(centers, _):

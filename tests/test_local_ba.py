@@ -99,3 +99,19 @@ def test_ba_noisy_reduces_cost():
     assert float(res.cost) <= float(solve_ba(prob, iters=1).cost)
     perr = jnp.abs(se3.log(res.T_cw @ se3.inv(T_true))).max()
     assert float(perr) < 0.02
+
+
+def test_ba_masked_pose_slot_untouched():
+    """An invalid pose slot and invalid points keep their inputs while
+    the valid free poses still converge."""
+    prob, T_true, X_true = make_problem(jax.random.PRNGKey(5))
+    prob = prob._replace(pose_valid=prob.pose_valid.at[3].set(False),
+                         point_valid=prob.point_valid.at[40:].set(False))
+    res = jax.jit(lambda pr: solve_ba(pr, iters=8))(prob)
+    np.testing.assert_array_equal(np.asarray(res.T_cw[3]),
+                                  np.asarray(prob.T_cw[3]))
+    np.testing.assert_array_equal(np.asarray(res.Xw[40:]),
+                                  np.asarray(prob.Xw[40:]))
+    perr = jnp.abs(se3.log(res.T_cw[:3] @ se3.inv(T_true[:3]))).max()
+    assert float(perr) < 1e-3, float(perr)
+    assert np.all(np.asarray(res.edge_r2)[3] == 0.0)

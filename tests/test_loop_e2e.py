@@ -227,7 +227,7 @@ def test_relpose_refine_inert_when_initial_solve_rejected():
     bench clothoid an UNGATED refine re-matched around a wrong 34-inlier
     solve and manufactured 46 self-consistent inliers at a 4.3 m-wrong
     edge, stealing the closure from the genuine candidate one keyframe
-    later (BASELINE.md r5). Gated correctly, rounds=1 must return the
+    later (r5 sweep). Gated correctly, rounds=1 must return the
     rounds=0 result bit-for-bit on a pair whose solve is rejected."""
     import dataclasses
 
@@ -538,7 +538,7 @@ def test_figure_eight_multiple_closures():
     # regime (lobe-2 seam 9.5 vs 6.6 m open). The replay-edge
     # information boost built for this (LoopConfig.replay_edge_boost)
     # helps the 2-closure regime and hurts the 3-closure one — default
-    # off; full sweep in its config comment / BASELINE.md r5.
+    # off; full sweep in its config comment.
     assert s_closed[2] < s_open[2], \
         f"final-pass seam degraded: {s_closed} vs open {s_open}"
     assert max(s_closed) < 2.5 * max(s_open), \

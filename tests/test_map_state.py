@@ -1,7 +1,7 @@
 """Unit tests for the map-state slot allocator and landmark dedup.
 
-These two helpers sit on the keyframe-event hot path and have been
-rewritten for TPU (dense compare-reduce / sorted-adjacency forms);
+These two helpers sit on the keyframe-event hot path and are written
+as dense compare-reduce / sorted-adjacency forms;
 the tests pin their contract independently of the e2e suites.
 """
 

@@ -1,7 +1,6 @@
 """DP multi-sequence SLAM on the 8-device virtual CPU mesh.
 
-BASELINE.json config 5 ("vmap N KITTI sequences across a TPU mesh"):
-the FULL engine step (tracking + keyframe insertion + local BA,
+"vmap N KITTI sequences across a device mesh": the FULL engine step (tracking + keyframe insertion + local BA,
 parallel/mesh.multi_sequence_engine) must run batched over sequences
 with per-sequence maps growing independently, and the batch axis must
 stay sharded over the mesh through the whole step."""

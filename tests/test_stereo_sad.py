@@ -5,8 +5,8 @@ import pytest
 import jax.numpy as jnp
 
 from slam_toolkit_tpu.ops import stereo_sad
-from slam_toolkit_tpu.ops.stereo_sad import (_curve_fallback, _curve_pallas,
-                                             _shifts, _strip_w, WIN, PAD)
+from slam_toolkit_tpu.ops.stereo_sad import (_shifts, _strip_w, sad_curve,
+                                             WIN, PAD)
 
 
 def _textured_pair(h, w, disp, seed=0):
@@ -48,20 +48,30 @@ def test_uniqueness_rejects_flat_regions():
     assert not bool(np.asarray(ok).any())
 
 
-def test_kernel_matches_fallback_interpret():
+def test_sad_curve_matches_brute_force():
+    """Every (keypoint, shift) SAD equals a direct numpy sum over the
+    11x11 window, including keypoints whose corners were clamped."""
     h, w, d = 96, 512, 17
     left, right = _textured_pair(h, w, d, seed=2)
     rng = np.random.default_rng(3)
     k = 48
     max_disp = 60
     side = 2 * WIN + 1
-    xl = rng.integers(120, w - 20, k).astype(np.int32)
-    yl = rng.integers(20, h - 20, k).astype(np.int32)
-    ys0 = jnp.asarray(np.clip(yl - WIN, 0, h - side))
-    xl0 = jnp.asarray(np.clip(xl - WIN, 0, w - side))
-    xs0 = jnp.asarray(np.clip(xl - (max_disp + WIN + PAD), 0,
-                              w - _strip_w(max_disp)))
-    ref = _curve_fallback(left, right, ys0, xl0, xs0, max_disp)
-    out = _curve_pallas(left, right, ys0, xl0, xs0, max_disp, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=0, atol=1e-3)
+    xl = np.concatenate([rng.integers(120, w - 20, k - 4), [0, 3, w - 1, 70]])
+    yl = np.concatenate([rng.integers(20, h - 20, k - 4), [0, h - 1, 2, 50]])
+    ys0 = np.clip(yl - WIN, 0, h - side).astype(np.int32)
+    xl0 = np.clip(xl - WIN, 0, w - side).astype(np.int32)
+    xs0 = np.clip(xl - (max_disp + WIN + PAD), 0,
+                  w - _strip_w(max_disp)).astype(np.int32)
+    out = np.asarray(sad_curve(left, right, jnp.asarray(ys0),
+                               jnp.asarray(xl0), jnp.asarray(xs0), max_disp))
+    L, R = np.asarray(left), np.asarray(right)
+    ns = _shifts(max_disp)
+    assert out.shape == (k, ns)
+    ref = np.empty((k, ns), np.float32)
+    for i in range(k):
+        patch = L[ys0[i]:ys0[i] + side, xl0[i]:xl0[i] + side]
+        for s in range(ns):
+            win = R[ys0[i]:ys0[i] + side, xs0[i] + s:xs0[i] + s + side]
+            ref[i, s] = np.abs(win - patch).sum()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-2)

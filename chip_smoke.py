@@ -79,15 +79,28 @@ def card_lines() -> list:
     return lines
 
 
-def call_ms(fn, args, reps: int = 50) -> float:
-    """Device time per call: `reps` calls enqueued back to back, one
-    sync at the end (dispatch overlaps the device's queue)."""
+def wall_ms(fn, args, reps: int = 50) -> float:
+    """Host wall time per call, pipelined: `reps` calls enqueued back to
+    back, one sync at the end. Includes what dispatch and launch gaps
+    leave the device idle."""
     import jax
     jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
-    outs = [fn(*args) for _ in range(reps)]
-    jax.block_until_ready(outs)
+    jax.block_until_ready([fn(*args) for _ in range(reps)])
     return (time.perf_counter() - t0) * 1000.0 / reps
+
+
+def kernel_times(kernel, plain, args) -> str:
+    """A kernel and its plain XLA version per call: device-busy time
+    from a profiler trace of 50 calls (utils/timing.device_ms), and the
+    pipelined wall time of 50 more."""
+    from slam_toolkit_tpu.utils.timing import device_ms
+
+    def one(fn):
+        dev = device_ms(fn, args)
+        dev = "not measured" if dev is None else f"{dev:.4f} ms"
+        return f"device {dev}, wall {wall_ms(fn, args):.4f} ms/call"
+    return f"kernel: {one(kernel)}; XLA: {one(plain)}"
 
 
 # --------------------------------------------------------------- kernels
@@ -159,8 +172,8 @@ def phase_kernels(cfg) -> None:
           f"matcher kernel differs from _topk2_xla in "
           f"{int((got != want).any(axis=1).sum())} rows")
     log(f"[kernels] matcher {args[0].shape[0]}x{args[1].shape[0]} r={r}: "
-        f"exact match ({n_best} rows with a candidate); device time "
-        f"kernel {call_ms(kern, args):.4f} ms, XLA {call_ms(ref, args):.4f} ms")
+        f"exact match ({n_best} rows with a candidate); "
+        f"{kernel_times(kern, ref, args)}")
 
     tcfg = cfg.tracker
     args = pose_case(cfg)
@@ -177,8 +190,7 @@ def phase_kernels(cfg) -> None:
                           == (np.asarray(exact.inlier_r2) <= thr)))
     log(f"[kernels] pose LM N={args[1].shape[0]}: rotation diff {d_rot:.3g}, "
         f"translation diff {d_t:.3g} m, inlier agreement {agree:.5f}; "
-        f"device time kernel {call_ms(kern, args):.4f} ms, "
-        f"XLA {call_ms(plain, args):.4f} ms")
+        f"{kernel_times(kern, plain, args)}")
     check(np.isfinite(T_g).all() and d_rot <= 1e-4 and d_t <= 1e-3
           and agree >= 0.999, "pose LM kernel outside its tolerance")
 

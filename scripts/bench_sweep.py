@@ -21,12 +21,9 @@ import numpy as np
 
 def load_or_render(cfg, n_frames, seed):
     from slam_toolkit_tpu.data.synthetic import make_sequence
-    data_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".bench_data")
-    os.makedirs(data_dir, exist_ok=True)
-    cache = os.path.join(data_dir, f"sweep_{seed}_{n_frames}_"
-                         f"{cfg.camera.width}x{cfg.camera.height}")
+    from slam_toolkit_tpu.utils.paths import data_path
+    cache = data_path(f"sweep_{seed}_{n_frames}_"
+                      f"{cfg.camera.width}x{cfg.camera.height}")
     if os.path.exists(cache + ".npy"):
         return np.load(cache + ".npy", mmap_mode="r"), \
             list(np.load(cache + ".gt.npy"))

@@ -1,10 +1,10 @@
 """Fine-grained timing inside the loop-mode host machinery.
 
-profile_loop_stages.py showed _consume_scores costing ~60-80 ms/call
-even when no closure fires; this script splits that call (and
-_consume_loop_entry's pre-work) into sections to find the blocking op.
+Splits the host engine's _consume_scores call (which
+profile_loop_stages.py times as one bucket) and _consume_loop_entry's
+pre-work into sections to find a blocking op.
 
-Run on the real chip: `python scripts/profile_consume.py`.
+Run on the GPU: `python scripts/profile_consume.py`.
 """
 
 import os
@@ -22,8 +22,8 @@ import jax.numpy as jnp
 from slam_toolkit_tpu.utils import compile_cache
 compile_cache.enable()
 
+from bench import stage_loop
 from slam_toolkit_tpu.config import SlamConfig
-from slam_toolkit_tpu.loop import vocab as V
 from slam_toolkit_tpu.loop.detector import (ConsistencyTracker,
                                             acc_score_retrieval)
 from slam_toolkit_tpu.pipeline import engine as engine_mod
@@ -89,7 +89,7 @@ def patched_consume(self, slot, cand_mask, scores, covis_of=None,
     accepted.sort(key=lambda ci: -scores[cand_slots[ci]])
     for ci in accepted:
         cand = int(cand_slots[ci])
-        rel = self._relpose(self.map, jnp.int32(slot), jnp.int32(cand))
+        rel, _ = self._relpose(self.map, jnp.int32(slot), jnp.int32(cand))
         ok = bool(rel.ok)
         t = tick("relpose_sync", t)
         if not ok:
@@ -131,12 +131,8 @@ def main():
     n = int(os.environ.get("BENCH_FRAMES", "320"))
     chunk = int(os.environ.get("BENCH_CHUNK", "16"))
 
-    # reuse bench.py's cached loop sequence + vocab
-    cache = (f"/tmp/slam_loop_seq_v2_{n}_{cfg.camera.width}x"
-             f"{cfg.camera.height}")
-    assert os.path.exists(cache + ".npy"), "run BENCH_LOOP=1 bench.py first"
-    stacked = np.load(cache + ".npy", mmap_mode="r")
-    voc = V.load_dbow2_text(f"/tmp/slam_loop_vocab_{n}.txt")
+    # bench.py's loop sequence + vocab (rendered and trained once)
+    stacked, _, voc, _, _ = stage_loop(cfg, n, chunk)
 
     from slam_toolkit_tpu.pipeline.engine import SlamEngine
     SlamEngine._consume_scores = patched_consume

@@ -1,13 +1,13 @@
-"""Attribute loop-mode's per-chunk overhead vs the headline bench (r5).
+"""Attribute loop-mode's per-chunk overhead vs the headline bench.
 
-Headline (no vocab) runs ~594 fps; loop mode ~400. The delta is
-~13 ms/chunk. Candidates: the _bow_register program in the device
-stream, the mapping worker's covis/relpose dispatches, and host-side
-phase work contending for the single CPU core. This times each device
-program standalone at production shapes on the live bench map.
+Loop mode (BENCH_LOOP=1) runs slower than the headline (no vocab).
+Candidates: the _bow_register program in the device stream, the mapping
+worker's covis/relpose dispatches, and host-side phase work contending
+for the CPU. This times each device program standalone at production
+shapes on the live bench map.
 
-Run: python scripts/profile_loop_overhead.py   (real chip; needs the
-loop bench's cached frames + vocab at /tmp)
+Run: python scripts/profile_loop_overhead.py   (on the GPU; renders or
+reuses the loop bench's frames and vocabulary, bench.stage_loop)
 """
 
 import os
@@ -15,8 +15,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import numpy as np
 
 
 def t(fn, *a, n=20):
@@ -37,17 +35,14 @@ def main():
     compile_cache.enable()
 
     from slam_toolkit_tpu.config import SlamConfig
-    from slam_toolkit_tpu.loop import vocab as V
+    from bench import stage_loop
     from slam_toolkit_tpu.pipeline.scan_engine import (ChunkedSlamEngine,
                                                        PACK_WIDTH)
 
     cfg = SlamConfig()
     chunk = 16
     n_warm = 4 * chunk
-    cache = (f"/tmp/slam_loop_seq_v2_320_{cfg.camera.width}x"
-             f"{cfg.camera.height}")
-    stacked = np.load(cache + ".npy", mmap_mode="r")
-    voc = V.load_dbow2_text("/tmp/slam_loop_vocab_320.txt")
+    stacked, _, voc, _, _ = stage_loop(cfg, 320, chunk)
 
     eng = ChunkedSlamEngine(cfg, vocab=voc, chunk_size=chunk)
     for i in range(0, n_warm, chunk):

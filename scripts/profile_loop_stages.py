@@ -18,8 +18,6 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
 
@@ -27,7 +25,7 @@ from slam_toolkit_tpu.utils import compile_cache
 compile_cache.enable()
 
 from slam_toolkit_tpu.config import SlamConfig
-from slam_toolkit_tpu.loop import vocab as V
+from bench import stage_loop
 from slam_toolkit_tpu.pipeline.scan_engine import ChunkedSlamEngine
 
 BUCKETS = defaultdict(float)
@@ -49,12 +47,7 @@ def main():
     cfg = SlamConfig()
     chunk = int(os.environ.get("BENCH_CHUNK", "16"))
     n = int(os.environ.get("BENCH_FRAMES", "320"))
-    cache = (f"/tmp/slam_loop_seq_v2_{n}_{cfg.camera.width}x"
-             f"{cfg.camera.height}")
-    if not os.path.exists(cache + ".npy"):
-        sys.exit("run BENCH_LOOP=1 python bench.py once first (seq cache)")
-    stacked = np.load(cache + ".npy", mmap_mode="r")
-    voc = V.load_dbow2_text(f"/tmp/slam_loop_vocab_{n}.txt")
+    stacked, _, voc, _, _ = stage_loop(cfg, n, chunk)
 
     chunks = [jnp.asarray(stacked[i:i + chunk], jnp.float32)
               for i in range(0, n, chunk)]

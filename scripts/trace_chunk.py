@@ -1,52 +1,71 @@
-"""Capture + summarize an op-level profile of bench chunks on the GPU.
+"""Trace two bench chunks on the GPU and rank the device's kernels.
 
-Uses the bench.py frame cache (run bench.py once to build it). Traces
-two mid-sequence chunks — a warm map with the production keyframe rate.
+Uses the bench's rendered sequence (bench.stage_frames) and traces two
+mid-sequence chunks: a warm map with the production keyframe rate.
+Prints the device-busy share of the traced window and the kernels with
+the most device time; writes the trace and the full per-kernel table
+under `.bench_data/trace/` in the checkout.
+
+Run: python scripts/trace_chunk.py   (on the GPU)
 """
+import collections
+import json
 import os
 import sys
+import time
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import glob
-import numpy as np
 import jax
 import jax.numpy as jnp
 
-from slam_toolkit_tpu.utils import compile_cache
+from slam_toolkit_tpu.utils import compile_cache, timing
+from slam_toolkit_tpu.utils.paths import data_path
+
 compile_cache.enable()
 
+from bench import stage_frames
 from slam_toolkit_tpu.config import SlamConfig
 from slam_toolkit_tpu.pipeline.scan_engine import ChunkedSlamEngine
 
-LOGDIR = "/tmp/jax_trace"
 CHUNK = 16
+N_FRAMES = 160
 
 cfg = SlamConfig()
-cache = (f"/tmp/slam_bench_seq_v2_160_{cfg.camera.width}x"
-         f"{cfg.camera.height}.npz.npy")
-stacked = np.load(cache, mmap_mode="r")
+stacked, _ = stage_frames(cfg, N_FRAMES)
 chunks = [jnp.asarray(stacked[i:i + CHUNK], jnp.float32)
-          for i in range(0, 160, CHUNK)]
+          for i in range(0, N_FRAMES, CHUNK)]
 jax.block_until_ready(chunks)
 eng = ChunkedSlamEngine(cfg, chunk_size=CHUNK)
 for c in chunks[:6]:
     eng.process_chunk(c)
 eng.flush()
 
-jax.profiler.start_trace(LOGDIR)
-eng.process_chunk(chunks[6])
-eng.process_chunk(chunks[7])
-eng.flush()
-jax.profiler.stop_trace()
-print("trace captured")
+logdir = data_path("trace/chunk")
+t0 = time.perf_counter()
+with timing.device_trace(logdir):
+    eng.process_chunk(chunks[6])
+    eng.process_chunk(chunks[7])
+    eng.flush()
+window_ns = (time.perf_counter() - t0) * 1e9
 
-xplanes = glob.glob(LOGDIR + "/**/*.xplane.pb", recursive=True)
-xplanes.sort(key=os.path.getmtime)
-print("xplane files:", xplanes[-1:])
-if xplanes:
-    from tensorboard_plugin_profile.convert import raw_to_tool_data as rtd
-    data, _ = rtd.xspace_to_tool_data(xplanes[-1:], "framework_op_stats", {})
-    out = "/tmp/op_stats.json"
-    with open(out, "w") as f:
-        f.write(data if isinstance(data, str) else data.decode())
-    print("wrote", out)
+events = timing.device_events(timing.load_trace(logdir))
+busy = timing.busy_ns(events)
+per_kernel = collections.defaultdict(lambda: [0, 0.0])
+for name, _, dur in events:
+    per_kernel[name][0] += 1
+    per_kernel[name][1] += dur
+rows = sorted(({"kernel": k, "calls": n, "device_ms": ns / 1e6}
+               for k, (n, ns) in per_kernel.items()),
+              key=lambda r: -r["device_ms"])
+print(f"{2 * CHUNK} frames: device busy {busy / 1e6:.3f} ms of a "
+      f"{window_ns / 1e6:.3f} ms window (busy share "
+      f"{busy / window_ns:.4f}), {len(events)} device events")
+for r in rows[:25]:
+    print(f"{r['device_ms']:10.4f} ms  x{r['calls']:5d}  {r['kernel'][:90]}")
+out = data_path("trace/chunk_kernels.json")
+with open(out, "w") as f:
+    json.dump({"device": jax.devices()[0].device_kind, "frames": 2 * CHUNK,
+               "busy_ms": busy / 1e6, "window_ms": window_ns / 1e6,
+               "kernels": rows}, f, indent=1)
+print("wrote", out)

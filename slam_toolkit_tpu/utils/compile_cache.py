@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import os
 
-CHECKOUT_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), ".jax_cache")
+from slam_toolkit_tpu.utils.paths import CHECKOUT
+
+CHECKOUT_CACHE_DIR = os.path.join(CHECKOUT, ".jax_cache")
 
 
 def enable() -> str:
